@@ -5,9 +5,7 @@ The reference loads a multi-megapixel HDR (pisa.hdr) through initHDR
 2048x1024 (2M-texel) HDR through the SAME first-party pipeline: write_hdr
 -> read_hdr (RLE round-trip) -> build_env_distribution (native Vose alias
 over 2M texels, must be sub-second — the interpreted fallback takes
-minutes) -> full render with env importance sampling. CPU here; the
-identical config was timed on the real TPU (ARCHITECTURE.md "real-scale
-envmap" note).
+minutes) -> full render with env importance sampling, on the CPU.
 """
 import time
 
@@ -37,7 +35,7 @@ def test_megapixel_envmap_end_to_end(tmp_path):
     # the reference's CDF build in initHDR is likewise O(n) at startup)
     from tpu_pathtracer.tracer.envsample import build_env_distribution
     # CPU time, best of 2: wall-clock asserts flake when the box is loaded
-    # (e.g. a concurrent TPU bench saturating host cores); the build is
+    # (e.g. a concurrent benchmark saturating host cores); the build is
     # single-threaded C + numpy, ~0.7 s CPU at 2M texels
     dt_full = float("inf")
     for _ in range(2):
@@ -46,7 +44,7 @@ def test_megapixel_envmap_end_to_end(tmp_path):
         dt_full = min(dt_full, time.process_time() - t0)
     assert dist["env_alias"].shape[0] == 2048 * 1024
     # 5 s bound: typical is ~0.7 s CPU but cache/memory pressure from a
-    # concurrent TPU bench or profiler run on the same box inflates even
+    # concurrent benchmark or profiler run on the same box inflates even
     # process_time (measured 1.04 s and >1.5 s under load) — the
     # interpreted fallback this guards against takes MINUTES, so even a
     # wide margin stays discriminating

@@ -19,8 +19,9 @@ import functools
 
 
 @functools.lru_cache(maxsize=1)
-def _configs():
-    from tpu_pathtracer.scene import procedural, MatDesc
+def _small_configs():
+    """Configs 1-5, on the 4.4k-triangle demo scene."""
+    from tpu_pathtracer.scene import MatDesc
     from tpu_pathtracer.scene.config import (
         MAT_DIFF, MAT_GLASS, MAT_REFL, MAT_FRESNEL, MAT_SUBSURFACE,
     )
@@ -57,16 +58,6 @@ def _configs():
              MatDesc(refltype=MAT_GLASS),
              MatDesc(refltype=MAT_REFL)]
 
-    # configs 6/7: media + BSSRDF at REFERENCE scale on irregular geometry
-    # (the head.ply-class ~104k-tri organic blob; VERDICT r04 #5 — all
-    # prior media/sss evidence was on ~4k-tri scenes). The goldens pin the
-    # CPU result; bench.py gates the TPU render against them on device.
-    from tpu_pathtracer.scene.demo import large_organic_scene
-    fb6, mats6, env6, tex6 = large_organic_scene(
-        cache_dir=".bvh_cache_tests", variant="sss")
-    fb7, mats7, env7, tex7 = large_organic_scene(
-        cache_dir=".bvh_cache_tests", variant="media")
-
     base = dict(use_envmap=True, use_texture=True)
     return {
         "c1_lambertian": (fb, mats1, envmap, texture,
@@ -84,6 +75,24 @@ def _configs():
         "c5_bssrdf": (fb, mats5, envmap, texture,
                       RenderSettings(bounce_min=3, bounce_max=10,
                                      has_bssrdf=True, **base), 0.0),
+    }
+
+
+@functools.lru_cache(maxsize=1)
+def _configs():
+    # configs 6/7: media + BSSRDF at reference scale on irregular geometry
+    # (the head.ply-class ~104k-tri organic blob). The goldens pin the CPU
+    # result; the device gates (bench.py, chip_smoke.py) compare device
+    # renders against them.
+    from tpu_pathtracer.scene.demo import large_organic_scene
+    from tpu_pathtracer.tracer import RenderSettings
+    fb6, mats6, env6, tex6 = large_organic_scene(
+        cache_dir=".bvh_cache_tests", variant="sss")
+    fb7, mats7, env7, tex7 = large_organic_scene(
+        cache_dir=".bvh_cache_tests", variant="media")
+    base = dict(use_envmap=True, use_texture=True)
+    return {
+        **_small_configs(),
         "c6_organic_sss": (fb6, mats6, env6, tex6,
                            RenderSettings(bounce_min=3, bounce_max=10,
                                           has_bssrdf=True, **base), 0.0),
@@ -133,8 +142,8 @@ def test_golden(name):
 if __name__ == "__main__":
     import sys
     # goldens are CPU-pinned by definition — force the platform HERE so a
-    # bare `python tests/test_goldens.py regen` can't silently grab the
-    # TPU (outside pytest, conftest's CPU pin does not apply)
+    # bare `python tests/test_goldens.py regen` can't silently grab an
+    # accelerator (outside pytest, conftest's CPU pin does not apply)
     import jax
     jax.config.update("jax_platforms", "cpu")
     if len(sys.argv) > 1 and sys.argv[1] == "regen":

@@ -156,30 +156,32 @@ def test_base_scene_sharing_renders_identically():
 
 
 def test_workload_class_packet_shape(sphere_bvh):
-    """Derived RenderSettings pick the packet shape by workload class:
-    surface scenes get (8,8) (hit-slot-ordered survivors are coherent),
-    media/BSSRDF scenes get (32,4) (interior scattered / probe rays stay
-    incoherent; measured 627->510 / 484->414 ms/frame at 1024^2)."""
+    """Derived RenderSettings classify the workload (surface, media,
+    subsurface) from the materials and bound the traversal stack by the
+    tree's depth. No per-class packet shape is derived any more: the GPU
+    kernel traces one ray per thread, so the classes share one traversal
+    configuration."""
+    import dataclasses
     from tpu_pathtracer.scene.config import MAT_SUBSURFACE
+    assert not any(f.name.startswith("packet_")
+                   for f in dataclasses.fields(RenderSettings))
     surf = Renderer(sphere_bvh, [MatDesc(refltype=MAT_DIFF, kd=1.0)],
                     width=32, height=32)
-    assert (surf.settings.packet_tile_sub,
-            surf.settings.packet_interleave) == (8, 8)
+    assert not surf.settings.has_media and not surf.settings.has_bssrdf
+    assert surf.settings.stack_depth == min(64, sphere_bvh.max_depth + 2)
+    assert surf.settings.traversal == "auto"
     med = Renderer(sphere_bvh, [MatDesc(refltype=MAT_GLASS, medium="jade")],
                    width=32, height=32)
-    assert med.settings.has_media
-    assert (med.settings.packet_tile_sub,
-            med.settings.packet_interleave) == (32, 4)
+    assert med.settings.has_media and not med.settings.has_bssrdf
     sss = Renderer(sphere_bvh,
                    [MatDesc(refltype=MAT_SUBSURFACE)],
                    width=32, height=32)
-    assert sss.settings.has_bssrdf
-    assert (sss.settings.packet_tile_sub,
-            sss.settings.packet_interleave) == (32, 4)
-    # explicit settings are never second-guessed
+    assert sss.settings.has_bssrdf and not sss.settings.has_media
+    # explicit settings are never second-guessed (beyond the stack bound)
     explicit = Renderer(sphere_bvh,
                         [MatDesc(refltype=MAT_SUBSURFACE)],
                         width=32, height=32,
-                        settings=RenderSettings(has_bssrdf=True))
-    assert (explicit.settings.packet_tile_sub,
-            explicit.settings.packet_interleave) == (8, 8)
+                        settings=RenderSettings(has_bssrdf=True,
+                                                traversal="plain"))
+    assert explicit.settings.traversal == "plain"
+    assert explicit.settings.has_bssrdf

@@ -58,11 +58,11 @@ def test_sharded_regen_matches_single_device():
     differs (float add order), hence the small tolerance.
 
     96x96 = 9216 lanes / 8 devices = 1152 lanes per shard: each shard's
-    pool spans one FULL 1024-lane packet block plus a 128-lane partial
-    block, so per-shard respawn/compaction over a partial trailing packet
-    is exercised (a 32x32 image gave each shard only 128 lanes). NOTE:
-    shard_map + the Pallas packet kernel cannot compose on this rig (CPU
-    virtual devices force the pure-JAX traversal; see PARITY.md)."""
+    pool spans one FULL 1024-lane block plus a 128-lane partial block, so
+    per-shard respawn/compaction over a partial trailing block is
+    exercised (a 32x32 image gave each shard only 128 lanes). On CPU
+    devices traversal is the plain path; on GPUs the same seam runs the
+    CUDA kernel per shard."""
     mesh = procedural.make_test_scene()
     fb = flatten_mesh_bvh(mesh)
     mats = [MatDesc(refltype=MAT_DIFF), MatDesc(refltype=MAT_DIFF),
@@ -82,7 +82,7 @@ def test_sharded_regen_matches_single_device():
 
     r2 = Renderer(fb, mats, envmap=env, width=W, height=H, settings=st)
     sr = ShardedRenderer(r2, mesh=make_mesh(devs))
-    assert sr.eff_settings.integrator == "regen"
+    assert sr.settings.integrator == "regen"
     a2 = sr.zeros_accum()
     a2 = sr.render_frames(a2, rc, 1, 2)
     a2 = np.asarray(a2)[:W * H]

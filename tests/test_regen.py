@@ -309,36 +309,6 @@ def test_merged_envtex_gather_bit_identical(tmp_path):
     assert out[True].mean() > 0.0
 
 
-def test_unroll_interpret_equivalence(tmp_path):
-    """packet_step_unroll leaves results AND live step counts unchanged
-    (SENTINEL is a fixed point of the traversal step)."""
-    import jax.numpy as jnp
-    from tpu_pathtracer.tracer.traverse import pack_stream
-    from tpu_pathtracer.ops.traverse_packet import packet_intersect
-    from tpu_pathtracer.core.vecmath import RAY_MIN, RAY_MAX
-
-    mesh = procedural.make_test_scene()
-    fb = load_or_build(mesh, cache_dir=str(tmp_path))
-    packed = jnp.asarray(pack_stream(fb.prims, fb.meta))
-    rng = np.random.default_rng(3)
-    n = 512
-    co = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
-    co[:, 1] = rng.uniform(0.3, 3, n)
-    cd = rng.normal(size=(n, 3)).astype(np.float32)
-    cd /= np.linalg.norm(cd, axis=-1, keepdims=True)
-    outs = {}
-    for u in (1, 3):
-        s, t, ns = packet_intersect(
-            jnp.asarray(packed), jnp.asarray(co), jnp.asarray(cd),
-            RAY_MIN, RAY_MAX, stack_depth=fb.max_depth + 2,
-            tile_sub=8, interleave=4, queue_k=64, step_unroll=u,
-            count_steps=True, interpret=True)
-        outs[u] = (np.asarray(s), np.asarray(t), int(np.asarray(ns)[0]))
-    assert np.array_equal(outs[1][0], outs[3][0])
-    assert np.array_equal(outs[1][1], outs[3][1])
-    assert outs[1][2] == outs[3][2]
-
-
 def test_unknown_variant_raises():
     from tpu_pathtracer.scene.demo import testobj_scene
     with pytest.raises(ValueError):

@@ -137,12 +137,25 @@ def test_camera_orbit_and_cam_io(tmp_path):
     assert back.pitch == pytest.approx(cam.pitch)
 
 
-def test_reference_cam_file_parses():
-    # the actual 64-byte artifact shipped with the reference
-    cam = InteractiveCamera.load_cam("/root/reference/data/newCamSetting.cam")
+def test_reference_cam_file_parses(tmp_path):
+    # a 64-byte file in the reference's newCamSetting.cam layout (16
+    # little-endian f32: center xyz, view xyz, yaw, pitch, radius,
+    # aperture, focal distance, env rotation, resolution xy, fov xy),
+    # written byte by byte rather than through save_cam
+    import struct
+    vals = (0.0, 0.8, 0.0, 0.0, -0.3, -0.95, 0.35, 0.3, 4.5, 0.02, 4.0,
+            0.25, 1920.0, 1080.0, 60.0, 33.75)
+    path = tmp_path / "newCamSetting.cam"
+    path.write_bytes(struct.pack("<16f", *vals))
+    assert path.stat().st_size == 64
+    cam = InteractiveCamera.load_cam(str(path))
     assert 0.2 <= cam.radius <= 100.0
     assert abs(cam.pitch) <= 1.55
     assert cam.resolution[0] > 0
+    assert cam.yaw == pytest.approx(0.35)
+    assert cam.radius == pytest.approx(4.5)
+    assert tuple(cam.resolution) == (1920.0, 1080.0)
+    assert cam.env_map_rotation == pytest.approx(0.25)
 
 
 def test_hdr_old_style_runs(tmp_path):
@@ -163,14 +176,75 @@ def test_hdr_old_style_runs(tmp_path):
                                rtol=1e-6)
 
 
-def test_reference_checker_png_loads():
-    # the actual texture asset shipped with the reference
+def test_reference_checker_png_loads(tmp_path):
+    # a checker PNG like the reference's data/Checker.png (8-bit RGB),
+    # encoded here chunk by chunk with rows under the Sub and Up filters
+    import struct
+    import zlib
     from tpu_pathtracer.scene.texture import load_texture
-    tex = load_texture("/root/reference/data/Checker.png")
-    assert tex.ndim == 3 and tex.shape[2] == 3
+    n = 64
+    cells = (np.indices((n, n)).sum(0) // 8) % 2
+    img = np.repeat((cells * 255).astype(np.uint8)[..., None], 3, axis=2)
+    rows = []
+    for y in range(n):
+        line = img[y].reshape(-1).astype(np.int32)
+        if y % 2:                                   # Up
+            prev = img[y - 1].reshape(-1).astype(np.int32)
+            rows.append(bytes([2]) + bytes(((line - prev) & 0xFF).tolist()))
+        else:                                       # Sub
+            left = np.concatenate([[0, 0, 0], line[:-3]])
+            rows.append(bytes([1]) + bytes(((line - left) & 0xFF).tolist()))
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+    png = (b"\x89PNG\r\n\x1a\n"
+           + chunk(b"IHDR", struct.pack(">IIBBBBB", n, n, 8, 2, 0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(b"".join(rows)))
+           + chunk(b"IEND", b""))
+    (tmp_path / "Checker.png").write_bytes(png)
+    tex = load_texture(str(tmp_path / "Checker.png"))
+    assert tex.ndim == 3 and tex.shape == (n, n, 3)
     assert tex.dtype == np.float32
     assert 0.0 <= tex.min() and tex.max() <= 1.0
     assert tex.std() > 0.1, "checker has contrast"
+    np.testing.assert_array_equal(tex[..., 0] > 0.5, cells == 1)
+
+
+def test_png_writer_roundtrips_through_decoder(tmp_path):
+    from tpu_pathtracer.core.image import write_png
+    from tpu_pathtracer.scene.texture import decode_png
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (17, 23, 3), dtype=np.uint8)
+    write_png(str(tmp_path / "a.png"), img)
+    np.testing.assert_array_equal(
+        decode_png((tmp_path / "a.png").read_bytes()), img)
+    # accumulation + frame count -> tonemapped on the way out
+    acc = np.full((4, 5, 3), 2.0, np.float32)
+    write_png(str(tmp_path / "b.png"), acc, 8)
+    got = decode_png((tmp_path / "b.png").read_bytes())
+    assert np.all(got == int((0.25 ** (1 / 2.2)) * 255 + 0.5))
+
+
+def test_png_decoder_rejects_unsupported_kinds():
+    import struct
+    import zlib
+    from tpu_pathtracer.scene.texture import decode_png
+
+    def png(depth, ctype, interlace):
+        def chunk(tag, data):
+            return (struct.pack(">I", len(data)) + tag + data
+                    + struct.pack(">I", zlib.crc32(tag + data)))
+        return (b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", 2, 2, depth, ctype,
+                                             0, 0, interlace))
+                + chunk(b"IDAT", zlib.compress(bytes(16)))
+                + chunk(b"IEND", b""))
+    for kind in ((8, 0, 0), (16, 2, 0), (8, 3, 0), (8, 2, 1)):
+        with pytest.raises(ValueError, match="unsupported PNG"):
+            decode_png(png(*kind))
+    with pytest.raises(ValueError, match="not a PNG"):
+        decode_png(b"GIF89a")
 
 
 def _rle_encode_scanline(rgbe_row):

@@ -18,9 +18,9 @@ def test_scene_desc_to_render(tmp_path):
     write_obj(str(tmp_path / "scene.obj"), mesh,
               {0: "BackGroundMat", 1: "InnerMat", 2: "OuterMat", 3: "LTELogo"})
     write_hdr(str(tmp_path / "sky.hdr"), procedural.make_sky_envmap(64, 32))
-    from PIL import Image
+    from tpu_pathtracer.core.image import write_png
     tex = (procedural.make_checker_texture(64) * 255).astype(np.uint8)
-    Image.fromarray(tex, "RGB").save(str(tmp_path / "checker.png"))
+    write_png(str(tmp_path / "checker.png"), tex)
     cam = default_camera(64, 64)
     cam.save_cam(str(tmp_path / "cam.cam"))
 

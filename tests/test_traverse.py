@@ -109,246 +109,28 @@ def test_geometric_normal_faces_triangle(scene):
     assert np.all(align[hit] > 0.999)
 
 
-def test_packet_kernel_table_memspaces_match_brute_force(scene):
-    """Pallas packet kernel (interpret mode) vs brute force, for both table
-    memory spaces. (Interpret mode does not catch Mosaic miscompiles —
-    bench.py re-gates the kernel on the real device.)"""
-    from tpu_pathtracer.tracer.traverse import pack_stream
-    from tpu_pathtracer.ops.traverse_packet import packet_intersect
-    from tpu_pathtracer.core.vecmath import RAY_MIN, RAY_MAX
-
+@pytest.mark.parametrize("anyhit", [False, True], ids=["closest", "anyhit"])
+@pytest.mark.parametrize("active", ["mask", "prefix"])
+def test_plain_matches_brute_force_with_active_set(scene, anyhit, active):
+    """The plain traversal (the CPU path and the kernel's reference)
+    against the brute-force oracle, with a sparse mask or a lane-prefix
+    active set: inactive lanes return (-1, tmax), active ones match."""
     mesh, fb = scene
-    packed = jnp.asarray(pack_stream(fb.prims, fb.meta))
-    orig, d = _random_rays(512, 11)
-    bs, bt = brute_force_intersect(mesh.tri_vertices(), orig, d,
-                                   RAY_MIN, RAY_MAX)
-    outs = {}
-    for tmem in ("vmem", "smem"):
-        s, t = packet_intersect(packed, jnp.asarray(orig), jnp.asarray(d),
-                                RAY_MIN, RAY_MAX,
-                                stack_depth=fb.max_depth + 2,
-                                table_mem=tmem, interpret=True)
-        ours = np.where(np.asarray(s) >= 0,
-                        fb.tri_orig[np.maximum(np.asarray(s), 0)], -1)
-        assert (ours == bs).mean() > 0.999, tmem
-        hit = bs >= 0
-        np.testing.assert_allclose(np.asarray(t)[hit], bt[hit], rtol=1e-4,
-                                   err_msg=tmem)
-        outs[tmem] = np.asarray(s)
-    # table memspaces agree with each other exactly
-    np.testing.assert_array_equal(outs["vmem"], outs["smem"])
-
-
-def test_packet_kernel_smem_budget_guard(scene):
-    """Explicit table_mem='smem' with an over-budget table must fail fast
-    with a clear ValueError, not an opaque remote Mosaic compile error."""
-    from tpu_pathtracer.ops.traverse_packet import (
-        packet_intersect, _SMEM_TABLE_BUDGET_BYTES)
-    from tpu_pathtracer.core.vecmath import RAY_MIN, RAY_MAX
-    import pytest
-
-    rows = _SMEM_TABLE_BUDGET_BYTES // (14 * 4) + 1
-    big = jnp.zeros((rows, 16), jnp.float32)
-    orig, d = _random_rays(128, 3)
-    with pytest.raises(ValueError, match="SMEM budget"):
-        packet_intersect(big, jnp.asarray(orig), jnp.asarray(d),
-                         RAY_MIN, RAY_MAX, table_mem="smem", interpret=True)
-
-def test_packet_step_branch_matches_fused(scene):
-    """The 'branch' step body (3-way cursor switch) must be bit-identical
-    to the fused default, for closest-hit and anyhit, with sparse active
-    masks. (bench tooling re-gates it on the real device — interpret mode
-    does not catch Mosaic miscompiles.)"""
-    from tpu_pathtracer.tracer.traverse import pack_stream
-    from tpu_pathtracer.ops.traverse_packet import packet_intersect
-    from tpu_pathtracer.core.vecmath import RAY_MIN, RAY_MAX
-
-    mesh, fb = scene
-    packed = jnp.asarray(pack_stream(fb.prims, fb.meta))
-    orig, d = _random_rays(512, 23)
-    act = jnp.asarray((np.random.default_rng(5).uniform(size=512) > 0.4)
-                      .astype(np.int32))
-    for anyhit in (False, True):
-        outs = {}
-        for mode in ("fused", "branch"):
-            s, t = packet_intersect(packed, jnp.asarray(orig),
-                                    jnp.asarray(d), RAY_MIN, RAY_MAX,
-                                    anyhit=anyhit,
-                                    stack_depth=fb.max_depth + 2,
-                                    active=act, step_mode=mode,
-                                    interpret=True)
-            outs[mode] = (np.asarray(s), np.asarray(t))
-        np.testing.assert_array_equal(outs["fused"][0], outs["branch"][0])
-        np.testing.assert_array_equal(outs["fused"][1], outs["branch"][1])
-
-
-def test_packet_count_steps(scene):
-    """count_steps=True returns the same hits plus a per-lane live step
-    count (shared across a packet's lanes, positive where work happened)."""
-    from tpu_pathtracer.tracer.traverse import pack_stream
-    from tpu_pathtracer.ops.traverse_packet import packet_intersect
-    from tpu_pathtracer.core.vecmath import RAY_MIN, RAY_MAX
-
-    mesh, fb = scene
-    packed = jnp.asarray(pack_stream(fb.prims, fb.meta))
-    orig, d = _random_rays(1024, 29)
-    s0, t0 = packet_intersect(packed, jnp.asarray(orig), jnp.asarray(d),
-                              RAY_MIN, RAY_MAX,
-                              stack_depth=fb.max_depth + 2, interpret=True)
-    s1, t1, ns = packet_intersect(packed, jnp.asarray(orig),
-                                  jnp.asarray(d), RAY_MIN, RAY_MAX,
-                                  stack_depth=fb.max_depth + 2,
-                                  count_steps=True, interpret=True)
-    np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
-    np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
-    ns = np.asarray(ns)
-    assert ns.min() > 0              # live rays in every packet here
-    # one shared value per packet of tile_sub*128 lanes
-    per = ns.reshape(-1, 8 * 128)
-    assert (per == per[:, :1]).all()
-
-
-def test_packet_queue_matches_fixed(scene):
-    """The work-queue kernel (queue_k packets per instance, greedy slot
-    claiming — ops/traverse_packet._queue_kernel) must be bit-identical to
-    the fixed-grouping kernel for closest-hit, and class-identical for
-    anyhit, under sparse active masks including a fully-dead packet and a
-    padded tail. (bench tooling re-gates on the real device — interpret
-    mode does not catch Mosaic miscompiles.)"""
-    from tpu_pathtracer.tracer.traverse import pack_stream
-    from tpu_pathtracer.ops.traverse_packet import packet_intersect
-    from tpu_pathtracer.core.vecmath import RAY_MIN, RAY_MAX
-
-    mesh, fb = scene
-    packed = jnp.asarray(pack_stream(fb.prims, fb.meta))
-    n = 5 * 1024 + 512          # forces tail padding at queue_k=4
-    orig, d = _random_rays(n, 31)
-    act = (np.random.default_rng(9).uniform(size=n) > 0.3).astype(np.int32)
-    act[1024:2048] = 0          # one fully-dead packet
-    act = jnp.asarray(act)
-    sd = fb.max_depth + 2
-    for anyhit in (False, True):
-        s0, t0 = packet_intersect(packed, jnp.asarray(orig), jnp.asarray(d),
-                                  RAY_MIN, RAY_MAX, anyhit=anyhit,
-                                  stack_depth=sd, tile_sub=8, interleave=2,
-                                  active=act, interpret=True)
-        s1, t1, ns = packet_intersect(packed, jnp.asarray(orig),
-                                      jnp.asarray(d), RAY_MIN, RAY_MAX,
-                                      anyhit=anyhit, stack_depth=sd,
-                                      tile_sub=8, interleave=2, queue_k=4,
-                                      active=act, count_steps=True,
-                                      interpret=True)
-        if anyhit:
-            # anyhit may surface a different (any) hit; the lit/shadow
-            # classification must agree
-            np.testing.assert_array_equal(np.asarray(t0) > 1e10,
-                                          np.asarray(t1) > 1e10)
-        else:
-            np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
-            np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
-            ns = np.asarray(ns)
-            full = (n // 1024) * 1024
-            per = ns[:full].reshape(-1, 8 * 128)
-            assert (per == per[:, :1]).all()
-            assert per[1, 0] == 1       # dead packet burns exactly 1 step
-
-
-def test_packet_queue_active_prefix_matches_mask(scene):
-    """active_prefix=n (the regen pool's compaction invariant: active set
-    is the exact lane prefix) must be bit-identical to the equivalent
-    explicit mask on the closest-hit queue path — the prefix path drops
-    the tmax operand and derives act/tmax from SMEM scalars + a lane
-    iota inside the kernel. Non-queue / anyhit configs silently lower
-    the prefix to a mask; check those compose too. (bench.py re-gates
-    the prefix kernel specialization on the real device.)"""
-    from tpu_pathtracer.tracer.traverse import pack_stream
-    from tpu_pathtracer.ops.traverse_packet import packet_intersect
-    from tpu_pathtracer.core.vecmath import RAY_MIN, RAY_MAX
-    import pytest
-
-    mesh, fb = scene
-    packed = jnp.asarray(pack_stream(fb.prims, fb.meta))
-    n = 5 * 1024 + 512               # padded tail at queue_k=4
-    orig, d = _random_rays(n, 41)
-    sd = fb.max_depth + 2
-    # a prefix that splits a packet AND a lane row (not a multiple of 128)
-    for n_act in (n, 3 * 1024 + 77, 0):
-        mask = jnp.asarray((np.arange(n) < n_act).astype(np.int32))
-        for qk in (4, 0):            # queue path + fixed-grouping fallback
-            s0, t0 = packet_intersect(packed, jnp.asarray(orig),
-                                      jnp.asarray(d), RAY_MIN, RAY_MAX,
-                                      stack_depth=sd, tile_sub=8,
-                                      interleave=2, queue_k=qk,
-                                      active=mask, interpret=True)
-            s1, t1 = packet_intersect(packed, jnp.asarray(orig),
-                                      jnp.asarray(d), RAY_MIN, RAY_MAX,
-                                      stack_depth=sd, tile_sub=8,
-                                      interleave=2, queue_k=qk,
-                                      active_prefix=jnp.int32(n_act),
-                                      interpret=True)
-            np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
-            np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
-    # anyhit lowers the prefix to a mask (no prefix kernel exists there)
-    sa, ta = packet_intersect(packed, jnp.asarray(orig), jnp.asarray(d),
-                              RAY_MIN, RAY_MAX, anyhit=True, stack_depth=sd,
-                              tile_sub=8, interleave=2, queue_k=4,
-                              active_prefix=jnp.int32(2048), interpret=True)
-    sm, tm = packet_intersect(packed, jnp.asarray(orig), jnp.asarray(d),
-                              RAY_MIN, RAY_MAX, anyhit=True, stack_depth=sd,
-                              tile_sub=8, interleave=2, queue_k=4,
-                              active=jnp.asarray(
-                                  (np.arange(n) < 2048).astype(np.int32)),
-                              interpret=True)
-    np.testing.assert_array_equal(np.asarray(ta) > 1e10,
-                                  np.asarray(tm) > 1e10)
-    with pytest.raises(ValueError, match="not both"):
-        packet_intersect(packed, jnp.asarray(orig), jnp.asarray(d),
-                         RAY_MIN, RAY_MAX, stack_depth=sd, queue_k=4,
-                         tile_sub=8, interleave=2, active=mask,
-                         active_prefix=jnp.int32(7), interpret=True)
-
-
-def test_packet_table_modes_agree():
-    """The round-4 table-residency variants — 'split' (SMEM BFS hot prefix
-    + VMEM deep rows, per-step cond) and 'vmem_packed' ((K/8,128) packed
-    rows + dynamic roll) — must agree with brute force in interpret mode
-    across fixed, queue and prefix-act kernel configs. (On-device gates
-    live in tools/probe_split.py / probe_dma.py and bench.py; interpret
-    mode pins the logic.)"""
-    import numpy as np
-    import jax.numpy as jnp
-    from tpu_pathtracer.scene import procedural
-    from tpu_pathtracer.accel import flatten_mesh_bvh
-    from tpu_pathtracer.tracer.traverse import (
-        brute_force_intersect, pack_stream)
-    from tpu_pathtracer.ops import traverse_packet as tp
-    from tpu_pathtracer.ops.traverse_packet import packet_intersect
-
-    mesh = procedural.make_test_scene()
-    fb = flatten_mesh_bvh(mesh)
-    packed = jnp.asarray(pack_stream(fb.prims, fb.meta))
-    sd = fb.max_depth + 2
-    rng = np.random.default_rng(5)
-    n = 256
-    co = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
-    co[:, 1] = rng.uniform(0.3, 3, n)
-    cd = rng.normal(size=(n, 3)).astype(np.float32)
-    cd /= np.linalg.norm(cd, axis=-1, keepdims=True)
-    bt, _ = brute_force_intersect(mesh.tri_vertices(), co, cd, 1e-3, 1e30)
-
-    old_budget = tp._SMEM_TABLE_BUDGET_BYTES
-    try:
-        # force a small prefix so split's BOTH sides execute
-        tp._SMEM_TABLE_BUDGET_BYTES = 200 * 56
-        for mode in ("split", "vmem_packed"):
-            for qk in (0, 128):
-                hs, _ = packet_intersect(
-                    packed, jnp.asarray(co), jnp.asarray(cd), 1e-3, 1e30,
-                    stack_depth=sd, tile_sub=8, interleave=4,
-                    table_mem=mode, queue_k=qk, interpret=True)
-                hs = np.asarray(hs)
-                ours = np.where(hs >= 0,
-                                fb.tri_orig[np.maximum(hs, 0)], -1)
-                assert (ours == bt).mean() > 0.999, (mode, qk)
-    finally:
-        tp._SMEM_TABLE_BUDGET_BYTES = old_budget
+    n = 900
+    orig, d = _random_rays(n, 4)
+    act = (np.arange(n) % 4 != 0) if active == "mask" else np.arange(n) < 611
+    slot, t = intersect_scene(
+        jnp.asarray(fb.prims), jnp.asarray(fb.meta), fb.num_nodes,
+        jnp.asarray(orig), jnp.asarray(d), 1e-4, 1e20, anyhit=anyhit,
+        active=jnp.asarray(act), stack_depth=fb.max_depth + 2)
+    slot, t = np.asarray(slot), np.asarray(t)
+    assert np.all(slot[~act] == -1) and np.all(t[~act] == np.float32(1e20))
+    bf_tri, bf_t = brute_force_intersect(mesh.tri_vertices(), orig, d,
+                                         1e-4, 1e20)
+    np.testing.assert_array_equal(slot[act] >= 0, bf_tri[act] >= 0)
+    if not anyhit:
+        ours = fb.tri_orig[np.maximum(slot, 0)]
+        both = act & (slot >= 0)
+        assert np.all(ours[both] == bf_tri[both])
+        np.testing.assert_allclose(t[both], bf_t[both], rtol=1e-3,
+                                   atol=1e-4)

@@ -180,11 +180,11 @@ def main():
                     help="samples per device dispatch")
     ap.add_argument("--preview-div", type=int, default=2,
                     help="moving-camera preview downscale (2 = half-res, "
-                         "4 = quarter-res; the interactivity ladder — "
-                         "quarter-res buys ~4x the moving fps at a 1080p "
-                         "window on one chip)")
-    ap.add_argument("--compile-cache-dir", default=".jax_cache",
-                    help="persistent XLA compile cache ('' disables)")
+                         "4 = quarter-res)")
+    ap.add_argument("--compile-cache-dir", default=None,
+                    help="persistent XLA compile cache ('' disables); "
+                         "default: $JAX_COMPILATION_CACHE_DIR, else "
+                         ".jax_cache at the checkout root")
     args = ap.parse_args()
 
     from tpu_pathtracer.utils import compcache
@@ -216,10 +216,9 @@ def main():
 
     # downscaled preview renderer: while the camera is moving we trade
     # resolution for latency (the reference keeps full res and simply
-    # drops to low accumulation; at TPU dispatch latencies a reduced-res
-    # preview is the better interactivity tradeoff — measured 28 ms/frame
-    # at 256^2 vs 99 ms at 512^2 on v5e; at a 1080p window the ladder is
-    # half-res 2.1 fps / quarter-res ~4x that, tools/probe_viewer.py).
+    # drops to low accumulation; a reduced-res preview keeps the moving
+    # camera responsive when a full-res frame is slow — the frame cost
+    # scales with pixels, so half-res costs about a quarter).
     # Shares the full renderer's device scene arrays (base_scene) — only
     # the lane tables differ. Enabled only when the upscale is exact,
     # else moving frames simply render at full res.

@@ -2,7 +2,7 @@
 """1920x1080 default-scene showcase through the FULL asset pipeline at
 real asset scale: a 2048x1024 (2M-texel) HDR sky written + re-read through
 the first-party RGBE codec, alias-built natively, then progressively
-rendered on the TPU (the reference's native resolution and its pisa.hdr
+rendered on the GPU (the reference's native resolution and its pisa.hdr
 flow, /root/reference/src/main.cpp:372-406 + renderkernel.cu:1043-1046).
 
 Usage: python tools/showcase_1080p.py [--spp 256] [--out renders/showcase_1080p.png]

@@ -1,7 +1,7 @@
-"""TPU-native wavefront path tracer.
+"""Wavefront path tracer in JAX.
 
-A brand-new physically-based rendering framework for TPU, with the full
-capability set of the reference CUDA megakernel path tracer
+A physically-based rendering framework in JAX, with the full capability
+set of the reference CUDA megakernel path tracer
 (wangkepfe/CUDA-Path-Tracing, see SURVEY.md):
 
 * SBVH (spatial-split BVH) acceleration over OBJ/PLY triangle meshes
@@ -17,10 +17,11 @@ capability set of the reference CUDA megakernel path tracer
 * Thin-lens depth of field, AA jitter, textures, JSON scene description
   (reference: src/renderkernel.cu:862, src/SceneDesc.cpp).
 
-Architecture is TPU-first (NOT a port): a batched *wavefront* pipeline over
-SoA ray arrays driven by `lax.while_loop`, with a unified primitive stream
-(BVH inner nodes and Woop triangles share one (K,12) array so traversal does
-one gather per lane per step), branch-free vectorized BSDF dispatch, and
+Architecture (NOT a port): a batched *wavefront* pipeline over SoA ray
+arrays driven by `lax.while_loop`, with a unified primitive stream (BVH
+inner nodes and Woop triangles share one (K,16) row layout so traversal
+does one row fetch per step), a per-ray CUDA traversal kernel on NVIDIA
+GPUs (ops/traverse.cu), branch-free vectorized BSDF dispatch, and
 counter-based (PCG) RNG.
 """
 

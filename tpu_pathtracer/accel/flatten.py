@@ -1,8 +1,9 @@
-"""Flatten a BVH into the TPU traversal layout.
+"""Flatten a BVH into the traversal layout.
 
 Role analog of the reference's CudaBVH Compact2 flattener
-(src/CudaBVH.cpp:117-297), redesigned for TPU gathers instead of CUDA texture
-fetches. We emit ONE unified primitive stream:
+(src/CudaBVH.cpp:117-297), redesigned so one fixed-width row serves both
+an inner node and a triangle (one fetch per traversal step in the CUDA
+kernel and in the plain path). We emit ONE unified primitive stream:
 
   prims: float32 [K, 12]
     - inner-node row i (i < num_nodes):
@@ -201,13 +202,13 @@ def bfs_reorder_nodes(fb: FlatBVH) -> FlatBVH:
     tri-row addressing contract woop_geometric_normal and the attribute
     packers rely on).
 
-    Why: the split-table traversal path holds a PREFIX of the stream in
-    SMEM. Steps concentrate at the top of the tree (every traversal
-    restarts at the root), but the DFS emission order scatters near-root
-    nodes across the whole row space — BFS makes row index ~ tree depth,
-    so an S-row SMEM prefix covers the top ~log2(S) levels and with them
-    the bulk of node steps. Node order is semantically free: the cursor
-    encodes rows directly and hit_slot is the attr slot, not the row."""
+    Why: steps concentrate at the top of the tree (every traversal starts
+    at the root), but the DFS emission order scatters near-root nodes
+    across the whole row space — BFS makes row index ~ tree depth, so the
+    top levels, which every ray visits, share a few cache lines. (Its
+    effect on the GPU kernel's cache hit rate is not measured.) Node
+    order is semantically free: the cursor encodes rows directly and
+    hit_slot is the attr slot, not the row."""
     n = fb.num_nodes
     nm = fb.meta[:n].astype(np.int64)
     order = np.empty(n, np.int64)

@@ -3,7 +3,7 @@
 // C++ implementation of the same Stich-2009 spatial-split BVH algorithm as
 // the Python builder (accel/bvh.py): SAH object splits via 3-axis sort +
 // sweep, 32-bin spatial splits with triangle-plane reference chopping, and
-// per-reference unsplit/duplicate decisions. This is the TPU-native analog
+// per-reference unsplit/duplicate decisions. This is this project's analog
 // of the reference's CPU builder role (src/SplitBVHBuilder.cpp) — written
 // from scratch against the paper, ported from our own Python version.
 //

@@ -1,5 +1,7 @@
 """Image output/input: tonemapping, PPM/PNG writers, metrics.
 
+No imaging library is needed: PNGs are written with zlib and struct.
+
 Mirrors the reference display path: accumulation buffer / framenumber,
 clamp to [0,1], gamma 1/2.2, 8-bit quantize (src/renderkernel.cu:959-977 and
 writeToPPM src/Util.cpp:14-23 via pixelToInt src/Util.h:57).
@@ -39,10 +41,36 @@ def read_ppm(path):
     return px / maxv
 
 
-def write_png(path, accum, frame_count):
-    from PIL import Image
-    img = tonemap(accum, frame_count)
-    Image.fromarray(img, "RGB").save(path)
+def encode_png(img):
+    """uint8 [H,W,3] RGB -> PNG file bytes (8-bit truecolor, no interlace,
+    filter type 0 on every row), with the standard library only."""
+    import struct
+    import zlib
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w, c = img.shape
+    if c != 3:
+        raise ValueError("encode_png wants [H,W,3] RGB, got %r" % (img.shape,))
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, -1)],
+                          axis=1)
+
+    def chunk(tag, data):
+        body = tag + data
+        return (struct.pack(">I", len(data)) + body
+                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path, img, frame_count=None):
+    """Write an 8-bit RGB PNG. With frame_count, `img` is a summed-radiance
+    accumulation [H,W,3] and is tonemapped first; without it, `img` is
+    already a uint8 [H,W,3] image."""
+    if frame_count is not None:
+        img = tonemap(img, frame_count)
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
 
 
 def srgb_to_linear(c):

@@ -2,10 +2,11 @@
 
 The reference seeds one curand sequence per pixel per frame
 (`curand_init(WangHash(frame) + threadId)`, src/renderkernel.cu:879-880) and
-draws uniforms serially along the path. We keep the same structure TPU-style:
+draws uniforms serially along the path. We keep the same structure, wavefront
+style:
 each wavefront lane carries a uint32 state column; a draw hashes and advances
 every lane in one vector op. The generator is the widely used PCG output hash
-over an LCG state — fast (few VPU ops), statistically solid for MC rendering,
+over an LCG state — fast (a few integer ops), statistically solid for MC rendering,
 and fully deterministic given (frame, lane).
 
 For distribution-level unit tests we also cross-check against jax.random.

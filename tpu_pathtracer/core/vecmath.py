@@ -1,7 +1,7 @@
 """Vector math over batched [..., 3] jnp arrays.
 
-The reference carries Vec3f scalars per CUDA thread (src/linear_math.h); on
-TPU every quantity is a column of a wavefront, so all helpers below operate on
+The reference carries Vec3f scalars per CUDA thread (src/linear_math.h);
+here every quantity is a column of a wavefront, so all helpers below operate on
 arrays whose last axis is the xyz component axis and vectorize over leading
 axes for free.
 """
@@ -61,11 +61,9 @@ def channel_select(c, ch):
     """Per-lane RGB channel pick: c[i, ch[i]] as a branch-free select.
 
     Bit-identical to `take_along_axis(c, ch[:, None], 1)[:, 0]`, but that
-    form lowers to a per-index XLA gather on TPU, which has no fast path
-    for the near-duplicate index pattern ch in {0,1,2} — measured ~23 ms
-    per 1M lanes per call on v5e (profiler, subsurface frame; same
-    serialization the gather probes found for duplicate rows). The
-    two-select form is plain VPU work, ~free in any fusion."""
+    form lowers to a per-index XLA gather over the near-duplicate index
+    pattern ch in {0,1,2}, which serialises on duplicate rows. The
+    two-select form is plain elementwise work that fuses."""
     return jnp.where(ch == 0, c[..., 0],
                      jnp.where(ch == 1, c[..., 1], c[..., 2]))
 

@@ -1,1 +1,1 @@
-from .traverse_packet import packet_intersect
+"""Hand-written device kernels (CUDA, called through jax.ffi)."""

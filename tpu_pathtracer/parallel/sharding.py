@@ -1,8 +1,8 @@
 """Multi-chip rendering: shard the wavefront over a device mesh.
 
 The reference is single-GPU (`cudaSetDevice(0)`, src/main.cpp:723); path
-tracing is embarrassingly parallel over pixels, so the TPU-native scale-out
-is: replicate the scene, shard the lane axis (pixels) across chips via
+tracing is embarrassingly parallel over pixels, so the scale-out is:
+replicate the scene, shard the lane axis (pixels) across chips via
 shard_map over a 1-D mesh, render locally, and let the final image assembly
 be a no-op gather of the sharded accumulation buffer. No per-bounce
 communication exists because every path is independent (SURVEY.md §2.3).
@@ -15,8 +15,6 @@ RNG means every sample value is identical to the single-device render, and
 each shard's `while_loop` runs its own trip count with zero collectives.
 """
 from __future__ import annotations
-
-import dataclasses
 
 import numpy as np
 import jax
@@ -56,14 +54,10 @@ class ShardedRenderer:
             for k, v in renderer.scene.items()
         }
 
-        # the Pallas packet kernel only runs on TPU devices; a CPU mesh
-        # (e.g. the multi-chip dry run on virtual devices) must use the
-        # pure-JAX traversal regardless of the process default backend
-        settings = renderer.settings
-        plats = {d.platform for d in np.asarray(self.mesh.devices).ravel()}
-        if plats != {"tpu"} and settings.traversal in ("auto", "packet"):
-            settings = dataclasses.replace(settings, traversal="wavefront")
-        self.eff_settings = settings
+        # traversal goes through the same seam as the single-device path
+        # (wavefront.trace_rays): on a GPU the kernel runs per shard under
+        # shard_map
+        settings = self.settings = renderer.settings
 
         if settings.integrator == "regen":
             from ..tracer.regen import make_regen_integrator

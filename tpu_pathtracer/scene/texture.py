@@ -3,7 +3,7 @@
 The reference binds CUDA texture objects (src/renderkernel.cu:1021-1038):
   * HDR envmap: clamp address mode, linear filter, normalized coords.
   * Color texture: wrap address mode, linear filter, sRGB decode.
-On TPU textures are plain arrays; we implement bilinear filtering with the
+Here textures are plain arrays; we implement bilinear filtering with the
 matching wrap/clamp semantics, and decode sRGB at load time.
 """
 from __future__ import annotations
@@ -15,11 +15,75 @@ from ..core.image import srgb_to_linear
 from ..core.vecmath import TWO_PI, PI
 
 
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> uint8 [H,W,C] (C = 3 for RGB, 4 for RGBA), standard
+    library only. Supports what texture assets use: 8-bit truecolor with or
+    without alpha, no interlace, all five row filters. Anything else raises
+    ValueError naming what was found."""
+    import struct
+    import zlib
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, ihdr, idat = 8, None, []
+    while pos + 8 <= len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    if ihdr is None:
+        raise ValueError("PNG has no IHDR chunk")
+    w, h, depth, ctype, _comp, _filt, interlace = ihdr
+    channels = {2: 3, 6: 4}.get(ctype)
+    if depth != 8 or channels is None or interlace != 0:
+        raise ValueError(
+            "unsupported PNG: bit depth %d, color type %d, interlace %d "
+            "(want 8-bit RGB or RGBA, not interlaced)"
+            % (depth, ctype, interlace))
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    stride = w * channels
+    raw = raw[:h * (stride + 1)].reshape(h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        ftype, line = raw[y, 0], raw[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:                       # Sub: running sum per channel
+            cur = (np.cumsum(line.reshape(w, channels), axis=0)
+                   & 0xFF).reshape(-1)
+        elif ftype == 2:                       # Up
+            cur = (line + prev) & 0xFF
+        elif ftype in (3, 4):                  # Average, Paeth
+            cur = np.zeros(stride, np.int32)
+            for x in range(stride):
+                a = cur[x - channels] if x >= channels else 0
+                if ftype == 3:
+                    pred = (a + prev[x]) >> 1
+                else:
+                    b = prev[x]
+                    c = prev[x - channels] if x >= channels else 0
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    pred = a if pa <= pb and pa <= pc else (
+                        b if pb <= pc else c)
+                cur[x] = (line[x] + pred) & 0xFF
+        else:
+            raise ValueError("corrupt PNG: row filter %d" % ftype)
+        out[y] = cur
+        prev = cur
+    return out.reshape(h, w, channels)
+
+
 def load_texture(path) -> np.ndarray:
-    """Load an LDR image file -> linear float32 [H,W,3] (sRGB decoded,
-    matching colorTexture.sRGB = true at src/renderkernel.cu:1035)."""
-    from PIL import Image
-    img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+    """Load an 8-bit RGB/RGBA PNG -> linear float32 [H,W,3] (sRGB decoded,
+    matching colorTexture.sRGB = true at src/renderkernel.cu:1035; alpha
+    is dropped)."""
+    with open(path, "rb") as f:
+        img = decode_png(f.read())[..., :3].astype(np.float32) / 255.0
     return srgb_to_linear(img).astype(np.float32)
 
 
@@ -69,8 +133,8 @@ def make_quad_texture(tex, wrap_u, wrap_v):
     """Precompute the 2x2 bilinear footprint per texel: quad[y,x] =
     [t(y,x), t(y,x+1), t(y+1,x), t(y+1,x+1)] with wrap/clamp applied at
     build time. A bilinear fetch then costs ONE 12-float row gather instead
-    of four 3-float gathers — gathers inside the TPU bounce loop are the
-    expensive primitive, so this is a 4x cut of the texture cost."""
+    of four 3-float gathers — gathers inside the bounce loop are the
+    expensive primitive, so this is a 4x cut of the gathered indices."""
     import numpy as np
     t = np.asarray(tex, np.float32)
     H, W, _ = t.shape
@@ -131,7 +195,7 @@ def sample_envmap_quad_pdf(quad16, H, W, raydir, rotation):
     p_uv [...] the EXACT pdf_uv of the texel floor(u*W), floor(v*H) —
     selected, not interpolated, so it equals envsample.env_pdf_of_dir's
     gather bit for bit). Folding the pdf into the miss-path fetch removes
-    a separate ~8 ms/wave full-width gather from the integrators."""
+    a separate full-width gather per wave from the integrators."""
     u, v = _uv_from_dir(raydir, rotation)
     x = u * W - 0.5
     y = v * H - 0.5

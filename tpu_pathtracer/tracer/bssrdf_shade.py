@@ -143,9 +143,9 @@ def _sample_probe_ray(r1, r2, r3, normal, hitpoint, sigma_t, rho, vx, vy,
                    jnp.where(axis_x, r1 * (r1 - 0.5) * 4.0,
                              r1 * (r1 - 0.75) * 4.0))
 
-    # branch-free channel pick: the take_along_axis form lowered to a
-    # per-index gather costing ~23 ms per 1M lanes PER CALL on v5e
-    # (6 calls/wave across the 3 probes dominated the subsurface frame)
+    # branch-free channel pick: the take_along_axis form lowers to a
+    # per-index gather (6 calls/wave across the 3 probes; see
+    # vecmath.channel_select)
     st_ch = jnp.maximum(channel_select(sigma_t, ch), 1e-12)
     rho_ch = channel_select(rho, ch)
     if use_soe:
@@ -224,8 +224,7 @@ def bssrdf_scatter(scene, settings, rng, hitpoint, normal2, mat, mat_id,
 
         # ---- probe traversal (masked) ----
         # tmax clamps to the sampled probe length: hits beyond it are
-        # discarded anyway, and short rays prune traversal early
-        # (subsurface frame 1225 -> measured lower at 1024^2; the
+        # discarded anyway, and short rays prune traversal early (the
         # reference's probe rays carry the same tMax semantics)
         from .wavefront import trace_rays
         slot, dist = trace_rays(scene, settings, probe_orig, probe_dir,

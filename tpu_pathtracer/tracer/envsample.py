@@ -25,18 +25,18 @@ def build_env_distribution(env, topk=16384):
     """env: [H,W,3] float. Returns dict of numpy arrays for the sampler.
 
     The sampler uses Walker's alias method over the texel distribution:
-    drawing a direction costs ONE gather of a packed row — in-loop binary
-    CDF searches cost ~3 ms per gather pass at 1M lanes, ~20x this.
+    drawing a direction costs ONE gather of a packed row, where an in-loop
+    binary CDF search costs one gather pass per level.
 
     topk: NEE draws are restricted to the `topk` BRIGHTEST texels (by
     sin-weighted luminance), with the pdf renormalized over that subset
     and reported as 0 elsewhere — still unbiased under MIS (BSDF sampling
     covers the remainder with weight 1 there; the reference has no NEE at
-    all). Two measured reasons on v5e: a row-gather's cost cliffs with
-    table size (a 16k-row draw is ~5x cheaper than 131k), and restricting
-    draws to the bright (sun) texels keeps the shadow-ray packets
-    directionally coherent — the UNRESTRICTED draw's sky-texel tail made
-    the anyhit dispatch the single most expensive NEE stage (~29 ms/wave).
+    all). Two reasons: a small alias table is a cheaper gather target
+    than a large one, and restricting draws to the bright (sun) texels
+    keeps neighbouring shadow rays directionally coherent — the
+    unrestricted draw's sky-texel tail made the anyhit traversal the most
+    expensive NEE stage in earlier tuning.
     topk<=0 disables the restriction. Envs with H*W <= topk are unchanged.
     """
     env = np.asarray(env, np.float32)
@@ -64,7 +64,7 @@ def build_env_distribution(env, topk=16384):
     # ---- alias table over the selected texels ----
     # production path: exact Vose in C (accel/native/alias.cpp) — the
     # interpreted loop below is the correctness reference but takes minutes
-    # at real envmap sizes (2048x1024 = 2M texels; C ~10 ms)
+    # at real envmap sizes (2048x1024 = 2M texels)
     p = (w_sel / total) * k                     # mean 1
     from ..accel.native_build import alias_build_native
     native = alias_build_native(p)

@@ -40,8 +40,8 @@ def medium_interaction(scene, rng, orig, raydir, mask, hit_t, medium_id,
 
     # sample a channel (src/reflection.cuh:169)
     ch = jnp.clip((r1 * 3.0).astype(jnp.int32), 0, 2)
-    # branch-free pick (take_along_axis lowers to a ~23 ms/M-lane gather
-    # on v5e for this duplicate-heavy index pattern — see vecmath)
+    # branch-free pick (take_along_axis lowers to a per-index gather for
+    # this duplicate-heavy index pattern — see vecmath)
     st_ch = jnp.maximum(channel_select(sigma_t, ch), 1e-12)
 
     dist = -jnp.log(jnp.maximum(1.0 - r2, 1e-12)) / st_ch

@@ -1,9 +1,8 @@
 """Path-regeneration wavefront integrator.
 
 The classic bounce-loop integrator (wavefront.make_integrator) runs every
-iteration at full width even when only the long glass paths survive —
-measured ~86 ms per late iteration at 1M lanes with <15% alive. This
-integrator instead keeps a constant-width pool of ALWAYS-ACTIVE paths:
+iteration at full width even when only the long glass paths survive
+(a small share of lanes late in the frame). This integrator instead keeps a constant-width pool of ALWAYS-ACTIVE paths:
 when a path terminates its radiance is scatter-added into the accumulation
 buffer and the lane immediately respawns with the next unspawned camera
 sample (possibly of a later frame). Total wave count ~= total path segments
@@ -35,10 +34,9 @@ from .renderer import generate_camera_rays, lane_pixel_xy
 
 
 # ring capacity as a multiple of the pool: scattered indices per death =
-# F/(F-1/2); 4 (=1.14x) beat 1 (=2x, ties the windowed flush) by 3.8-7.7
-# ms/frame at 1024^2, and 8 (=1.07x) measured WORSE (211.9 vs 206.8 —
-# the rarer flush is bigger and the 2x buffer hurts more than the 0.07x
-# index saving), so 4 stays
+# F/(F-1/2); 4 (=1.14x) beat both 1 (=2x, ties the windowed flush) and 8
+# (=1.07x: the rarer flush is bigger and the 2x buffer costs more than the
+# 0.07x index saving) in earlier tuning; unmeasured on the GPU
 _RING_FACTOR = 4
 
 
@@ -53,10 +51,10 @@ def make_regen_integrator(settings: RenderSettings, width, height,
     launches + shadow rays rather than only primary samples.
 
     Respawn pulls from one GLOBAL sample queue (across frames). A
-    block-local-queue variant — each 1024-lane packet respawning only its
-    own 32x32 pixel tile's samples — was measured 1.6x SLOWER end-to-end
-    (block stragglers idle whole packets; ARCHITECTURE.md) and deleted;
-    the compact pool ordering recovers the packet coherence instead."""
+    block-local-queue variant — each 1024-lane block respawning only its
+    own 32x32 pixel tile's samples — lost end to end in earlier tuning
+    (block stragglers idle whole blocks) and was deleted; the compact
+    pool ordering keeps neighbouring lanes coherent instead."""
 
     if settings.regen_order == "compact" and settings.bounce_max > 127:
         # the compact permute packs bounce into bits 24..30 of one int32
@@ -82,42 +80,28 @@ def make_regen_integrator(settings: RenderSettings, width, height,
     if sort_mode and settings.regen_order != "compact":
         raise ValueError("regen_permute='sort' requires "
                          "regen_order='compact'")
-    # (Carrying the pool as ONE (P,16) matrix — the permute's gather
-    # output — to kill the four per-wave {1,0}->{0,1} carry layout
-    # copies (~0.9 ms each at 1M lanes) was built, CPU-bit-exact, and
-    # measured MUCH worse on device: 184.5 vs 159.2 ms/frame at 1024^2,
-    # 511.2 vs 419.2 at 1080p — XLA assigns the carry a {0,1} layout
-    # anyway and repays the transposes with interest at the unpack.
-    # Reverted; code in git history.)
 
     def integrate_frames(scene, cam_vec, frame0, lane0, accum, n_frames):
         N = accum.shape[0]          # pixels owned by this shard
-        # pool width is DECOUPLED from the image: per-wave cost is
-        # superlinear in pool size (the compact permute's row-gather cost
-        # per index cliffs with table size — 1.9/10.4/21.7 ns at
-        # 16k/131k/1M rows on v5e), so huge frames run a capped pool and
-        # just take more waves; the sample queue spans all pixels either
-        # way. pool_lanes <= 0 means image-sized (the round-2 behavior).
+        # pool width is DECOUPLED from the image: huge frames run a
+        # capped pool and just take more waves; the sample queue spans all
+        # pixels either way. pool_lanes <= 0 means image-sized.
         P = N if settings.pool_lanes <= 0 else min(settings.pool_lanes, N)
         tot = jnp.uint32(N) * jnp.uint32(n_frames)  # total samples to spawn
 
-        # accum rides the loop as THREE separate (N,) channel planes:
-        # a 1-d scatter-add's per-index cost is flat in target rows up to
-        # ~3M but cliffs beyond (6.8/6.9/9.6 ns at 1M/3.1M/6.3M rows,
-        # tools/probe_scatter_target.py), so three N-row planes beat both
-        # one (N,3) row scatter (~2x) and one flat (3N,) plane (+10% at
-        # 1024^2, +55% at 1080p where 3N = 6.2M rows crosses the cliff).
+        # accum rides the loop as THREE separate (N,) channel planes,
+        # each the target of a 1-d scatter-add (chosen over one (N,3) row
+        # scatter and one flat (3N,) plane in earlier tuning;
+        # unmeasured on the GPU).
         #
         # The planes are additionally SWIZZLED: slot h(p) = (p % 1024)*B
         # + p//1024 holds pixel p (B = ceil(N/1024)). Deaths arrive in
-        # tile-coherent bursts of near-CONSECUTIVE pixel indices, and a
-        # consecutive/duplicate-pattern scatter-add costs 8.7 ns/idx/ch
-        # on v5e vs 6.1 for a spread pattern (XLA's TPU scatter has no
-        # coalescing fast path and serializes near rows — same effect the
-        # gather probes found). The swizzle turns bursts into stride-B
-        # sequences, which measure at the full 6.1 rate; un-swizzling is
-        # one cheap (1024, B) transpose per plane per CALL, and per-pixel
-        # float add order is unchanged so results stay bit-identical.
+        # tile-coherent bursts of near-CONSECUTIVE pixel indices; the
+        # swizzle turns bursts into stride-B sequences, which a scatter
+        # without a coalescing fast path serialises less. Un-swizzling is
+        # one (1024, B) transpose per plane per CALL, and per-pixel float
+        # add order is unchanged so results stay bit-identical. Whether
+        # the GPU's scatter needs it is not measured (ROADMAP.md).
         _SA = 1024
         _SB = -(-N // _SA)
         _NS = _SA * _SB
@@ -162,8 +146,8 @@ def make_regen_integrator(settings: RenderSettings, width, height,
         if with_stats:
             # traced-ray counter (bench's honest Mrays/s denominator).
             # Carried ONLY when asked for: the NEE candidate count costs a
-            # full-width cross-lane reduce per wave (~1 ms at 1M lanes),
-            # which no production caller should pay — tools/render.py and
+            # full-width cross-lane reduce per wave, which no production
+            # caller should pay — tools/render.py and
             # the timed bench path run with_stats=False and read the ray
             # count from one untimed stats-enabled execution instead.
             st["rays"] = jnp.float32(0.0)
@@ -178,10 +162,9 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             # the ring can't take another window. Scattered indices per
             # death = R/(R-Kw): capacity must be MUCH larger than the
             # append window for the amortization to beat the per-wave
-            # windowed flush (R=P ties it at ~1.8x — measured 218.7 vs
-            # 218.9 ms at 1024^2; R=4P gives ~1.14x).
+            # windowed flush (R=P ties it at ~1.8x; R=4P gives ~1.14x).
             # Cols: L r/g/b + pixel as float value (bitcast pixels are
-            # denormal bit patterns; the TPU flushes them to 0 — see
+            # denormal bit patterns, which a device may flush to 0 — see
             # _flush_ring).
             st["ring"] = jnp.zeros((_RING_FACTOR * P, 4), jnp.float32)
             st["fill"] = jnp.int32(0)
@@ -205,7 +188,7 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             if stop_after_waves:
                 # diagnostic hook (perf probes): freeze the pool after k
                 # waves so the mid-frame ray population can be measured
-                # standalone (see tools/probe_trace.py)
+                # standalone (bench.py, chip_smoke.py)
                 go = go & (st["waves"] < stop_after_waves)
             return go
 
@@ -229,8 +212,8 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             # lanes are an exact tail suffix (rank is iota arithmetic),
             # and the spawn count is min(queue remainder, n_dead) — so
             # the respawn pass does ZERO full-width reductions (the
-            # classic form paid sum(dead) + sum(spawn) + sum(active) +
-            # a cond any() per wave, ~0.3-0.5 ms each at 1M lanes).
+            # classic form pays sum(dead) + sum(spawn) + sum(active) +
+            # a cond any() per wave).
             dead = ~active
             du = dead.astype(jnp.uint32)
             if settings.regen_order == "compact":
@@ -253,8 +236,8 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             pixel_glob = pixel_new + lane0.astype(jnp.int32)
             rng_new = RaySampler.init(wang_hash(frame_new),
                                       pixel_glob.astype(jnp.uint32))
-            # closed-form de-swizzle: a 1M-lane table gather costs ~7.5 ms
-            # per wave on v5e; this is ~0.3 ms of int ops
+            # closed-form de-swizzle: a few int ops instead of a pool-wide
+            # table gather
             pxi, pyi = lane_pixel_xy(pixel_glob, width, height)
             px = pxi.astype(jnp.float32)
             py = pyi.astype(jnp.float32)
@@ -295,8 +278,7 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             # In compact mode the active set is an exact lane PREFIX
             # (survivors compacted to the front, respawn fills the dead
             # tail in rank order), so the trace gets the count as a
-            # scalar — the packet queue kernel then derives act/tmax
-            # in-register instead of re-reading a tmax tile every step.
+            # device scalar and the kernel retires lanes past it at once.
             n_act = None
             if settings.regen_order == "compact":
                 n_act = n_act_u.astype(jnp.int32)
@@ -336,8 +318,7 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             # the previous diffuse vertex, negative = weight 1) closes MIS.
             # When the merged envtex table exists, the env-miss fetch and
             # the texture fetch share that one gather (a lane is either a
-            # miss or a surface hit — wavefront.env_tex_merged; measured
-            # 13.3 vs 26.9 ms per 1M idx for the two separate gathers).
+            # miss or a surface hit — wavefront.env_tex_merged).
             merged_et = (settings.merge_envtex and settings.use_texture
                          and settings.use_envmap
                          and settings.env_importance_sampling
@@ -527,8 +508,8 @@ def make_regen_integrator(settings: RenderSettings, width, height,
                 # Their whole-path radiance (spawned and died this wave =
                 # ell is exactly this wave's contrib) flushes as one
                 # (P,3) dynamic-slice add into the pixel-ordered dense
-                # buffer — a bandwidth op, vs the ~10 ns/idx/ch the ring
-                # drain pays per scattered index. Zeroed L + pixel keep
+                # buffer — a bandwidth op, vs the per-index cost the ring
+                # drain pays for every scattered index. Zeroed L + pixel keep
                 # them invisible to the ring (all-zero rows past its
                 # cursor) and the 3-class compaction key below keeps the
                 # OLD deaths an exact tail suffix so the ring's cursor
@@ -552,8 +533,8 @@ def make_regen_integrator(settings: RenderSettings, width, height,
                 n_fd = jnp.int32(0)
             if not deferred:
                 # scatter-add this wave's contributions into the image
-                # (channel-split: three 1-d scatters measured ~2x faster
-                # than one row scatter)
+                # (channel-split: three 1-d scatters, see the accum
+                # planes above)
                 ar_, ag_, ab_ = accum
                 hp = _swz(pixel)
                 ar_ = ar_.at[hp].add(contrib[:, 0])
@@ -591,23 +572,22 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             if settings.regen_order == "compact":
                 # stable-compact survivors to the front; dead lanes collect
                 # at the tail where next wave's respawn (rank order) hands
-                # them CONSECUTIVE queue samples — so fresh packets are
-                # whole 32x32-tile neighborhoods and surviving packets keep
-                # their generation's spatial order.
+                # them CONSECUTIVE queue samples — so fresh neighbouring
+                # lanes are whole 32x32-tile neighbourhoods and survivors
+                # keep their generation's spatial order.
                 su = active.astype(jnp.int32)
                 # survivor ordering: HIT-SLOT major (exact flattened-BVH
                 # slot of this wave's hit = DFS order = true tree
                 # locality), direction octant minor, dead lanes to an
                 # exact tail suffix via a stable argsort. Next wave's
-                # packets then hold rays that start on the SAME surface
-                # region and leave in similar directions, so their
-                # traversal working sets overlap — measured 302 -> 232
-                # ms/frame at 1024^2 vs the previous octant-major
-                # ordering (exact-slot beat 4/16/64/256-slot buckets and
-                # 5/8-bit hit-point Morton keys; the stable argsort is
-                # itself cheaper than 8 masked cumsums). Any survivor
-                # order is correctness-neutral: queue sample assignment
-                # is arbitrary and per-pixel sums are unchanged.
+                # neighbouring lanes (one warp on the GPU) then hold rays
+                # that start on the SAME surface region and leave in
+                # similar directions, so their traversal working sets
+                # overlap (this beat octant-major order, bucketed slots
+                # and Morton keys in earlier tuning; unmeasured on the
+                # GPU). Any survivor order is correctness-neutral: queue
+                # sample assignment is arbitrary and per-pixel sums are
+                # unchanged.
                 d_ = out["dir"]
                 oct_ = ((d_[:, 0] < 0).astype(jnp.int32)
                         | ((d_[:, 1] < 0).astype(jnp.int32) << 1)
@@ -627,12 +607,9 @@ def make_regen_integrator(settings: RenderSettings, width, height,
                                 dead_key)
                 if sort_mode:
                     # ONE stable multi-payload sort replaces argsort + the
-                    # (P,16) row-gather: 1.6 ms standalone at 1M lanes vs
-                    # 22.9 for the gather form (round-3 measurement). The
-                    # planar carry makes the sort's operands the carry
-                    # itself, so the slice/re-stack conversions that sank
-                    # the round-3 attempt (239.3 vs 215.6 ms/frame at
-                    # 1024^2 on a (P,3)-carried pool) never materialize.
+                    # (P,16) row-gather. The planar carry makes the sort's
+                    # operands the carry itself, so no slice/re-stack
+                    # conversions materialize around it.
                     pack = ((out["medium_id"] + 1)
                             | (su << 8)
                             | (out["lbn"] << 16)
@@ -682,16 +659,11 @@ def make_regen_integrator(settings: RenderSettings, width, height,
                             for c in out["L"])
                     return out
                 src = jnp.argsort(key, stable=True).astype(jnp.int32)
-                # ONE merged row-gather moves the whole pool state: at
-                # 1M-row tables the gather cost is per-INDEX and nearly
-                # column-count-free up to 16 columns (measured 21.7 ms at
-                # 10 == 13 == 16 cols on v5e). Int columns ride as bitcast
-                # f32 (bit-exact: the bits are only moved, never computed
-                # with). A multi-payload lax.sort carrying all 16 state
-                # columns instead measured 1.6 ms STANDALONE (vs 22.9 for
-                # argsort+take) but LOST in situ — 239.3 vs 215.6 ms/frame
-                # at 1024^2, the in-situ sort dup pricing at ~6 ms/wave
-                # plus downstream slowdowns — so the gather form stays.
+                # ONE merged row-gather moves the whole pool state (a
+                # gather's cost is per index, nearly independent of the
+                # column count up to 16). Int columns ride as bitcast f32
+                # (bit-exact: the bits are only moved, never computed
+                # with). The "sort" permute above is the alternative.
                 # pack: medium_id+1 (8b) | active (1b @8) | lbn (8b @16) |
                 # bounce (7b @24); bounce/lbn <= bounce_max <= 127
                 pack = ((out["medium_id"] + 1)
@@ -734,15 +706,14 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             return out
 
         # windowed-flush window = half the pool: a quarter-pool window
-        # overflowed to the full-flush branch on most waves and won only
-        # 11 ms/frame at 1024^2; the half-pool window catches nearly every
-        # wave while still halving the scatter
+        # overflowed to the full-flush branch on most waves; the half-pool
+        # window catches nearly every wave while still halving the scatter
         Kw = max(P // 2, 1)
-        # ring append window = 3/4 pool: the profiler showed steady-state
-        # deaths are ~0.48-0.7P per wave — right AT the old half-pool
-        # window, firing the 19.4 ms/frame full-pool fallback on 44% of
-        # waves (tools/profile_frame.py). 3/4 makes the fallback rare
-        # while the P-rung _ring_scatter ladder keeps flush windows tight.
+        # ring append window = 3/4 pool: steady-state deaths are
+        # ~0.48-0.7P per wave on the demo scene — right AT a half-pool
+        # window, which fired the full-pool fallback on almost half the
+        # waves. 3/4 makes the fallback rare while the P-rung
+        # _ring_scatter ladder keeps flush windows tight.
         Kr = max(3 * P // 4, 1)
 
         def _flush(out):
@@ -750,9 +721,8 @@ def make_regen_integrator(settings: RenderSettings, width, height,
 
             After compaction dead lanes are an EXACT tail suffix, so when
             <= Kw lanes are dead the scatter touches only the last Kw pool
-            rows — the scatter-add costs ~10 ms per 1M indices per channel
-            on v5e, so a quarter-pool window cuts the per-wave image-
-            accumulation cost ~4x. The rare wave where more than Kw lanes
+            rows — the scatter-add's cost is per index, so a smaller window
+            cuts the per-wave image-accumulation cost in proportion. The rare wave where more than Kw lanes
             die (a frame's last wave, mass sky misses) takes the full-pool
             branch of the cond instead — nothing is ever dropped."""
             acc = out["accum"]
@@ -795,10 +765,9 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             rows: the mid-loop pre-flush fires at fill > R - Kr (= 3.25P
             at the defaults), so P-granular rungs always paid the full-R
             scatter — ~1.23 scattered idx/death; P/4 rungs track fill to
-            ~1.06. (A while_loop that drained in P-row chunks was measured
-            WORSE — each chunk's scatter lowered at ~9.2 ns/idx vs ~6.5
-            for the static-window form, 207 vs ~197 ms/frame at 1024^2 —
-            and was reverted; profiles in ARCHITECTURE.md.)
+            ~1.06. (A while_loop that drained in P-row chunks lowered to a
+            slower scatter than this static-window form and was
+            reverted.)
 
             The scatter is UNMASKED: the ring keeps the invariant that
             rows >= fill are all-zero (initial zeros; the append writes
@@ -806,7 +775,7 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             prefix it scattered), so stale rows contribute +0.0 to pixel 0
             without the per-row iota/compare/select chain the masked form
             paid on up-to-4P rows per drain (the zero-write is a ~free
-            bandwidth store; the mask was measured VPU work on the
+            bandwidth store; the mask was elementwise work on the
             scatter's critical path)."""
             R = ring.shape[0]
             rung_step = max(P // 4, 1)
@@ -814,12 +783,6 @@ def make_regen_integrator(settings: RenderSettings, width, height,
             def scat(w):
                 def go(args):
                     (ar_, ag_, ab_), r = args
-                    # (an optimization_barrier forcing the f32->int cast
-                    # to materialize OUTSIDE the scatter fusion — chasing
-                    # the profiler's 10.4-vs-6.5 ns/idx index-derivation
-                    # sensitivity — measured WORSE: 159.5/430.1 vs
-                    # 153.0/425.4 ms/frame at 1024^2/1080p; the round
-                    # trip costs more than the fusion split saves)
                     pix = r[:w, 3].astype(jnp.int32)
                     lw = r[:w, 0:3]
                     ar_ = ar_.at[pix].add(lw[:, 0])
@@ -895,12 +858,12 @@ def make_regen_integrator(settings: RenderSettings, width, height,
                 # rows-past-fill-are-zero invariant that lets the drain
                 # scatter unmasked.
                 # pixel rides as a float VALUE, not a bitcast: pixel
-                # indices < 2^23 are DENORMAL f32 bit patterns, and the
-                # TPU flushes denormals to zero somewhere in the
-                # reverse/concat/DUS pipeline — a bitcast-carried pixel
-                # column read back all-zero on device (every banked
-                # path's radiance scatter-added onto pixel 0, skies went
-                # black) while every CPU test passed. Float values are
+                # indices < 2^23 are DENORMAL f32 bit patterns, and a
+                # device that flushes denormals to zero in the
+                # reverse/concat/DUS pipeline reads a bitcast-carried
+                # pixel column back all-zero (every banked path's
+                # radiance lands on pixel 0, skies go black) while every
+                # CPU test passes. Float values are
                 # exact for any pixel index < 2^24 (the swizzled slot is
                 # < N + 1023, still well under 2^24 at any supported
                 # resolution). The ring banks the SWIZZLED slot so the

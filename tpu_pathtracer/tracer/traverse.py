@@ -1,21 +1,22 @@
-"""BVH traversal + Woop triangle intersection, wavefront-vectorized.
+"""BVH traversal + Woop triangle intersection: the plain (pure-JAX) path.
 
 Functional redesign of the reference's Aila/Laine "Kepler" while-while
-traversal (intersectBVHandTriangles, src/renderkernel.cu:136-419) for TPU:
+traversal (intersectBVHandTriangles, src/renderkernel.cu:136-419) as a
+whole-array program. It is the CPU path and the reference that the CUDA
+kernel (ops/traverse.cu, the GPU path) is checked against:
 
-* The CUDA kernel keeps a per-thread register stack and diverges between the
-  node loop and the triangle loop, using warp ballots to stay coherent
-  (src/renderkernel.cu:310-321). TPU lanes cannot diverge, so we run a
-  *uniform step machine*: every iteration, each lane advances its cursor by
-  exactly one primitive — an inner node (two slab tests, push/pop) or one
-  Woop triangle test — selected by the cursor's sign. Because node rows and
-  triangle rows live in one unified (K,12) array (accel/flatten.py), each
-  step costs ONE row gather regardless of which kind of work the lane does.
+* The CUDA kernel keeps a per-thread stack and diverges between the node
+  loop and the triangle loop. Here every lane runs a *uniform step
+  machine*: each iteration advances each lane's cursor by exactly one
+  primitive — an inner node (two slab tests, push/pop) or one Woop
+  triangle test — selected by the cursor's sign. Because node rows and
+  triangle rows live in one unified (K,16) array (accel/flatten.py,
+  pack_stream), each step costs ONE row gather regardless of which kind of
+  work the lane does.
 
-* The traversal stack is a [N, DEPTH] int32 carry with a per-lane stack
-  pointer; push/pop are one-hot scatter/gather (vector ops, no scalar
-  control flow). DEPTH matches the reference STACK_SIZE=64
-  (src/renderkernel.cu:41).
+* The traversal stack is an (S, N) int32 shift register (push/pop are
+  lane-wise selects between shifted copies); S matches the reference's
+  STACK_SIZE=64 (src/renderkernel.cu:41) or the tree's depth + 2.
 
 * Same semantics: tmin slab clamping (spanBeginKepler), nearer-child-first
   ordering with far-child push (src/renderkernel.cu:266-278), anyHit early
@@ -42,9 +43,9 @@ def _ray_precompute(raydir):
 def pack_stream(prims, meta):
     """Pack the (K,12) f32 prim rows and (K,2) i32 meta into one (K,16) f32
     array (meta bitcast into columns 12:14) so traversal needs exactly ONE
-    gather per lane per step. Columns 14:16 are zero padding (a stored
-    child-order code once lived in col 14 for the deleted "axis" packet
-    ordering — see ARCHITECTURE.md "measured net-negative")."""
+    row fetch per step: four 16-byte loads in the CUDA kernel, one gather
+    per lane in the plain path. Columns 14:16 are zero padding to the
+    64-byte row."""
     import numpy as np
     K = prims.shape[0]
     packed = np.zeros((K, 16), np.float32)
@@ -64,20 +65,17 @@ def intersect_scene(prims, meta, num_nodes, orig, raydir, tmin, tmax,
     Returns (hit_slot [N] i32 — attribute slot of closest hit or -1,
              hit_t [N] f32).
 
-    TPU design notes:
+    Notes:
     * One (K,16) row gather per lane per step (node boxes / Woop triangle +
       bitcast meta share the row).
     * The traversal stack is a shift register laid out (S, N): push/pop are
       lane-wise selects between shifted copies — pure elementwise work
-      (per-lane dynamic indexing into an (N,S) stack lowered ~20x slower).
-    * Rays are processed in `tile_size` chunks via lax.map so the whole
-      while_loop state (stack + cursors + the padded primitive table) stays
-      VMEM-resident, and finished tiles exit early; full-width HBM-resident
-      carries were the dominant cost. When the table fits a tile, the row
-      gather uses take_along_axis with equal operand/index shapes, which
-      Mosaic/XLA lower to the hardware dynamic-gather.
-    * `stack_depth` should be the BVH's max_depth (FlatBVH.max_depth); the
-      default matches the reference's STACK_SIZE=64.
+      instead of per-lane dynamic indexing into an (N,S) stack.
+    * tile_size: rays are processed in chunks of this many via lax.map, so
+      each chunk's while_loop stops at its own slowest ray instead of the
+      slowest ray of the whole batch; None traces all rays in one loop.
+    * `stack_depth` should be the BVH's max_depth + 2 (FlatBVH.max_depth);
+      the default matches the reference's STACK_SIZE=64.
     """
     N = orig.shape[0]
     if packed is None:
@@ -129,18 +127,9 @@ def intersect_scene(prims, meta, num_nodes, orig, raydir, tmin, tmax,
 def _intersect_tile(pcols, orig, raydir, tmin, tmax, anyhit, stack_depth,
                     active):
     N = orig.shape[0]
-    K = pcols.shape[0]
-    if K <= N:
-        # pad the table to the tile height: equal-shape take_along_axis
-        # lowers to the TPU hardware dynamic-gather
-        tab = jnp.pad(pcols, ((0, N - K), (0, 0)))
 
-        def fetch(row):
-            idx2d = jnp.broadcast_to(row[:, None], (N, pcols.shape[1]))
-            return jnp.take_along_axis(tab, idx2d, axis=0)
-    else:
-        def fetch(row):
-            return jnp.take(pcols, row, axis=0)
+    def fetch(row):
+        return jnp.take(pcols, row, axis=0)
 
     idir = _ray_precompute(raydir)
     ood = orig * idir
@@ -231,9 +220,7 @@ def _intersect_tile(pcols, orig, raydir, tmin, tmax, anyhit, stack_depth,
         tri_next = cur - 1  # ~(row+1) == ~row - 1
 
         # ---- shift-register stack: push = shift down + new top, pop =
-        # shift up. Pure elementwise selects on an (S, N) carry — measured
-        # ~free next to the gather, unlike per-lane dynamic indexing into an
-        # (N, S) stack which lowered ~20x slower. ----
+        # shift up. Pure elementwise selects on an (S, N) carry. ----
         need_pop = node_pop | tri_pop
         if anyhit:
             need_pop = need_pop & ~tri_hit

@@ -1,12 +1,13 @@
 """The wavefront path integrator.
 
-TPU re-architecture of the reference's per-pixel megakernel
+Wavefront re-architecture of the reference's per-pixel megakernel
 (renderKernel, src/renderkernel.cu:472-855): the per-thread locals become SoA
 columns over a lane axis, the bounce loop becomes a lax.while_loop whose body
 is one wavefront iteration (intersect -> classify -> shade -> respawn), and
 the material switch (src/renderkernel.cu:603-848) becomes branch-free: every
-BSDF is evaluated for every lane (cheap VPU math) and the result selected by
-material id — the heavy, gather-bound traversal runs exactly once per bounce.
+BSDF is evaluated for every lane (cheap elementwise math) and the result
+selected by material id — the heavy, gather-bound traversal runs exactly
+once per bounce.
 
 Adaptive bounce budget matches the reference: start LIGHT_BOUNCE_NUM_MIN=2,
 specular events extend by 1, hard cap LIGHT_BOUNCE_NUM_MAX=16
@@ -59,47 +60,35 @@ class RenderSettings:
     env_importance_sampling: bool = True
     # NEE draws restricted to the top-k brightest texels (pdf renormalized
     # over the subset, 0 elsewhere — unbiased under MIS; see
-    # envsample.build_env_distribution for the two measured v5e reasons:
-    # small-table gather cost + shadow-packet direction coherence).
+    # envsample.build_env_distribution: a small alias table is a cheap
+    # gather, and shadow rays toward a few bright texels stay coherent).
     # <= 0 disables; envs with fewer texels are unaffected.
     env_nee_topk: int = 16384
     # integrator: "bounce" = classic full-width bounce loop, "regen" = path
     # regeneration (constant-width always-active pool; see tracer/regen.py)
     integrator: str = "regen"
     # pool ordering discipline: "inplace" respawns dead lanes where they
-    # died (pool degrades into a pixel-mixed soup; traversal packets lose
-    # spatial coherence), "compact" stable-compacts survivors to the front
-    # each wave and appends fresh spawns at the tail, so a packet holds
-    # lanes of mostly one spawn generation (consecutive queue samples =
-    # consecutive swizzled pixels = one 32x32 tile neighborhood). The
-    # classic wavefront compaction step (Laine et al.) as a pool
-    # permutation.
-    # Measured on v5e (1024^2 demo scene, ms per 1-spp frame): inplace 1494,
-    # compact 910 (tile_sub=8) / 777 (tile_sub=16) — compaction restores the
-    # packet coherence the global queue destroys, at the cost of one packed
-    # pool permutation per wave. (A block-local-queue variant measured
-    # worse still — numbers in ARCHITECTURE.md — and was deleted.)
+    # died (the pool degrades into a pixel-mixed soup), "compact"
+    # stable-compacts survivors to the front each wave and appends fresh
+    # spawns at the tail, so neighbouring lanes hold rays of mostly one
+    # spawn generation (consecutive queue samples = consecutive swizzled
+    # pixels = one 32x32 tile neighbourhood) and the active set is an
+    # exact lane prefix. The classic wavefront compaction step (Laine et
+    # al.) as a pool permutation; its cost against "inplace" on the GPU is
+    # not measured yet.
     regen_order: str = "compact"
     # compact-permute implementation: "gather" = argsort + one (P,13-16)
-    # row-gather (the round-2/3 form; per-index cost 21.7 ns at 1M rows),
-    # "sort" = one stable 17-operand lax.sort moving every pool column as
-    # a sort payload, with the pool's vector state carried as per-channel
-    # (P,) PLANES so the sort's operands are the carry itself. The sort
-    # form measured 1.6 ms standalone at 1M lanes in round 3 but LOST in
-    # situ against a (P,3)-carried pool (239.3 vs 215.6 ms/frame at
-    # 1024^2: slice/re-stack layout conversions around the sort); the
-    # planar carry is the layout change that removes those conversions.
+    # row-gather, "sort" = one stable 17-operand lax.sort moving every
+    # pool column as a sort payload, with the pool's vector state carried
+    # as per-channel (P,) planes so the sort's operands are the carry
+    # itself.
     regen_permute: str = "gather"
-    # regen pool width cap (lanes), decoupled from the image: per-wave cost
-    # is superlinear in pool size (the compact permute's per-index gather
-    # cost cliffs with table row count — measured 1.9/10.4/21.7 ns per
-    # index at 16k/131k/1M rows on v5e), so frames larger than the cap run
-    # a fixed-width pool and take proportionally more waves; the sample
-    # queue spans all pixels either way. <= 0 means image-sized (round-2
-    # behavior). Must be a multiple of the packet block (tile_sub*128*
-    # interleave) when it caps; 1M satisfies every shipped packet config.
+    # regen pool width cap (lanes), decoupled from the image: frames
+    # larger than the cap run a fixed-width pool and take proportionally
+    # more waves; the sample queue spans all pixels either way. <= 0 means
+    # image-sized.
     pool_lanes: int = 1 << 20
-    # profiling hook (bench.py stage breakdown): duplicate ONE stage of the
+    # profiling hook (bench stage pricing): duplicate ONE stage of the
     # regen wave and consume the copy with x0.0, so (t_dup - t_base) is that
     # stage's marginal in-situ cost — the only way to price a stage inside
     # a fused XLA program (deleting a stage instead lets XLA DCE shared
@@ -108,175 +97,83 @@ class RenderSettings:
     # "texture", "shade".
     dup_stage: str = ""
     # image-accumulation discipline for the regen integrator: "deferred"
-    # carries per-path radiance in three extra pool columns (rides the
-    # compact permute ~free: the 13->16-col row gather is per-INDEX,
-    # measured column-count-flat up to 16 on v5e) and scatter-adds only
-    # the compacted dead TAIL window (pool/4 indices) when paths finish,
-    # with a lax.cond full-pool flush on the rare wave where more than
-    # pool/4 lanes die. "ring" (default) goes one step further: the dead
-    # tail window is COPIED (contiguous dynamic_update_slice — bandwidth,
-    # not per-index) into a 4x-pool-sized cross-wave ring and the
-    # per-index image scatter runs only when the ring can't take another
-    # window, so scattered indices track actual deaths (~1.14x/death vs
-    # ~1.8x for the per-wave window; measured 218.9 -> 215.1 ms/frame at
-    # 1024^2 on (32,4) packets, 214.2 -> 206.5 on (8,8)). "wave"
-    # scatter-adds every lane's contribution every wave (round-2
-    # behavior; the scatter is per-index, so it costs the full pool width
-    # each wave). Deferral/ring need the compaction tail
-    # (regen_order="compact"); "wave" is used otherwise.
+    # carries per-path radiance in three extra pool columns (it rides the
+    # compact permute) and scatter-adds only the compacted dead TAIL
+    # window (pool/4 indices) when paths finish, with a lax.cond full-pool
+    # flush on the rare wave where more than pool/4 lanes die. "ring"
+    # (default) goes one step further: the dead tail window is COPIED
+    # (contiguous dynamic_update_slice — bandwidth, not per-index) into a
+    # 4x-pool-sized cross-wave ring and the per-index image scatter runs
+    # only when the ring can't take another window, so scattered indices
+    # track actual deaths (~1.14x per death vs ~1.8x for the per-wave
+    # window). "wave" scatter-adds every lane's contribution every wave
+    # (the scatter is per-index, so it costs the full pool width each
+    # wave). Deferral/ring need the compaction tail (regen_order=
+    # "compact"); "wave" is used otherwise.
     scatter_mode: str = "ring"
     # dense fresh-death flush: paths that die in the SAME wave that
-    # spawned them (first-segment deaths — sky-direct pixels; ~45-55% of
-    # all deaths on the demo scene) never enter the ring/scatter path at
-    # all. Within the spawn window the queue->pool mapping is affine
-    # (respawn hands dead-tail lanes consecutive sample ids), so their
-    # banked radiance rides ONE dynamic-slice add into a pixel-ordered
-    # dense buffer — bandwidth, not the ~10 ns/idx/ch per-index scatter
-    # the ring drain pays. A 3-class compaction key (alive < fresh-dead <
-    # old-dead) keeps the non-fresh deaths an exact tail suffix so the
-    # ring banks and scatters only them. Requires deferred radiance
-    # (scatter_mode "deferred"/"ring" + regen_order "compact").
+    # spawned them (first-segment deaths — sky-direct pixels, about half
+    # of all deaths on the demo scene) never enter the ring/scatter path.
+    # Within the spawn window the queue->pool mapping is affine (respawn
+    # hands dead-tail lanes consecutive sample ids), so their banked
+    # radiance rides ONE dynamic-slice add into a pixel-ordered dense
+    # buffer — bandwidth, not a per-index scatter. A 3-class compaction
+    # key (alive < fresh-dead < old-dead) keeps the non-fresh deaths an
+    # exact tail suffix so the ring banks and scatters only them. Requires
+    # deferred radiance (scatter_mode "deferred"/"ring" + regen_order
+    # "compact").
     dense_fresh_flush: bool = True
     distant_light_L: tuple = (1.2, 1.2, 1.2)      # src/renderkernel.cu:521
     distant_light_dir: tuple = (0.0, 1.3, -3.6)   # src/renderkernel.cu:522
-    # traversal backend: "packet" = Pallas packet kernel (TPU),
-    # "wavefront" = pure-JAX per-lane step machine, "auto" = packet on TPU
+    # traversal: "auto" = the CUDA per-ray kernel (ops/traverse.cu) on a
+    # GPU backend and the plain step machine (traverse.intersect_scene)
+    # elsewhere; "plain" forces the step machine on every backend (the
+    # reference for the kernel's A/B and device gates)
     traversal: str = "auto"
-    # sublane rows per packet (rays = x128). The step cost is scalar-bound,
-    # so fatter packets cut total steps; with the compact pool the larger
-    # union footprint stays cheap. The optimum tracks the pool's packet
-    # coherence: SMEM-table era with octant ordering favored (32,4)
-    # ((16,4) 337, (32,4) 312, (64,2) 363, (8,8) 335 ms/frame at 1024^2);
-    # the round-3 exact-hit-slot survivor ordering shifts it to (8,8) —
-    # (32,4) 219.7, (8,8) 215.0, (16,8) 224.7, (32,1) 247.8, (64,1)
-    # 252.2, (128,1) 302.5; at 1080p (8,8) 562.7 vs (32,4) 572.3.
-    # Narrower packets waste fewer union-footprint steps once packets are
-    # this coherent, and 8-way interleave still hides the scalar chain.
-    packet_tile_sub: int = 8
-    # independent packets interleaved per kernel instance (scalar-latency
-    # hiding; see ops/traverse_packet.py — interleave=1 kills the +51%
-    # interleave tax by construction but loses MORE to exposed scalar
-    # latency: measured numbers above)
-    packet_interleave: int = 8
-    # traversal step body: "fused" computes node-slab AND triangle-Woop
-    # math every step branch-free; "branch" switches on the cursor
-    # (dead/node/tri), halving VPU work per step and making a finished
-    # packet's steps near-free at the cost of one scalar multi-way branch
-    # per step. Measured on v5e: branch wins STANDALONE decisively
-    # (coherent 631 -> 988 Mrays/s, incoherent 95 -> 128, oracle-gated
-    # exact) but loses ~6 ms/frame IN SITU on the hit-slot-ordered real
-    # population (fused 220.1 vs branch 225.6+ ms at 1024^2), where
-    # packets of an instance finish together and the branch only costs —
-    # so fused is the integrator default and branch serves
-    # coherent-primary-style workloads.
-    packet_step: str = "fused"
-    # work-queue traversal (ops/traverse_packet._queue_kernel): each kernel
-    # instance owns packet_queue_k consecutive packets and `interleave`
-    # step slots that greedily claim the next packet when theirs finishes,
-    # so the straggler tax is paid once per instance instead of once per
-    # interleave group. Offline on the real mid-frame population the tax
-    # drops from +73-89% (fixed grouping) to +14% at k=64 / +7% at k=128
-    # (tools/eval_rebalance_offline.py; packet step counts are heavy-tailed
-    # and unpredictable at compaction time — 63-72% of lanes respawn fresh
-    # every wave, so rebalancing-by-predictor is impossible and the queue
-    # is the structural fix). In situ at (8,8): k=64 197.9 ms/frame at
-    # 1024^2 vs 204.2 fixed (1080p: 508.0 vs 550.8); il=16,k=64 213.5 and
-    # tile_sub=16/32 variants 203-215 all lose. <= interleave keeps the
-    # fixed grouping. After the kernel slimming (ood recomputed in-kernel,
-    # scalar-SMEM tmin, no done-carry on closest-hit — 15 -> 11 ray
-    # operands) the optimum moved UP: k=128's blocks now fit without
-    # VMEM pressure and win — 177.8 ms at 1024^2 / 456.5 at 1080p vs
-    # 183.7/— at k=64, 179.9 at k=96; k=192/256 lose again (194.0/194.9,
-    # the raised VMEM cap costs more than the smaller tax saves).
-    packet_queue_k: int = 128
-    # extension-trace active set as a lane-PREFIX count: the regen pool is
-    # an exact prefix after compaction + rank-ordered respawn, so the
-    # queue kernel derives act/tmax from two SMEM scalars + a
-    # loop-invariant lane iota instead of re-reading a (sub,128) tmax tile
-    # per slot-step (1 of 10 per-step VMEM loads) — and the caller's
-    # full-width tmax_enc prep fusion disappears. Off = round-3 behavior
-    # (tmax operand). Only affects the closest-hit queue path.
-    trace_active_prefix: bool = True
-    # anyhit (NEE shadow) packets stop as soon as every lane has found an
-    # occluder — a full cross-lane reduction on EVERY tri step (72% of
-    # steps). Off (default) trades later packet termination for a cheaper
-    # step and WINS on the real population: 436.1 -> 425.4 ms/frame at
-    # 1080p, 160.4 -> 158.7 at 1024^2 (the reduce sits on the scalar
-    # critical path; once every lane is done the votes are empty and the
-    # packet pops out in a few cheap steps anyway). Results are
-    # bit-identical either way (a done lane never votes).
-    anyhit_early_stop: bool = False
-    # packed-stream residency for the packet kernel: "auto" = SMEM when the
-    # table fits the 700 KB budget, else VMEM; "split" = BFS hot prefix in
-    # SMEM + full stream in VMEM (reference-asset-scale scenes);
-    # "smem"/"vmem" force one side (see ops/traverse_packet.py)
-    packet_table_mem: str = "auto"
     # merged env+texture per-wave gather (wavefront.env_tex_merged): the
     # env-miss and texture fetches are mutually exclusive per lane, so one
-    # gather on the concatenated table serves both — 13.3 vs 26.9 ms per
-    # 1M random idx standalone (tools/probe_gmerge.py). Off = the two
-    # separate full-width gathers (round-4 form), for A/B.
+    # gather on the concatenated table serves both. Off = the two separate
+    # full-width gathers, for A/B.
     merge_envtex: bool = True
-    # dependent traversal steps per while-loop iteration: the step is
-    # scalar-bound, so the loop-control + carry-shuffle overhead paid once
-    # per iteration is a real per-step component; unroll=k pays it once
-    # per k steps (SENTINEL is a fixed point, so a packet finishing
-    # mid-group idles <= k-1 no-op sub-steps). VERDICT r04 #4's
-    # half-the-iterations shape, without a second fetch port.
-    packet_step_unroll: int = 1
 
 
 def trace_rays(scene, settings: RenderSettings, orig, raydir, tmin, tmax,
                anyhit=False, active=None, active_prefix=None):
-    """Traversal dispatch: Pallas packet kernel on TPU, pure-JAX step
-    machine elsewhere.
+    """The traversal seam: the CUDA kernel when the process's default
+    backend is a GPU (and settings.traversal is "auto"), the plain step
+    machine otherwise. A kernel library that fails to build or load
+    raises; there is no silent fallback.
 
-    active_prefix: optional traced scalar asserting the active set is the
-    exact lane prefix [0, n) (the regen pool's compaction + rank-ordered
-    respawn invariant). The packet queue kernel exploits it to drop its
-    tmax operand (one fewer per-step VMEM re-read); other paths use the
-    plain `active` mask, which the caller must still pass."""
+    active: (N,) bool mask of lanes to trace (None = all). active_prefix:
+    optional traced scalar asserting the active set is the exact lane
+    prefix [0, n) (the regen pool's compaction invariant); the kernel
+    retires lanes >= n at once. The plain path uses the mask, which the
+    caller must therefore still pass."""
     mode = settings.traversal
-    if mode == "auto":
-        mode = "packet" if jax.default_backend() == "tpu" else "wavefront"
-    if mode == "packet" and "packed" in scene:
-        from ..ops.traverse_packet import packet_intersect
-        use_prefix = (active_prefix is not None and not anyhit
-                      and settings.trace_active_prefix
-                      and settings.packet_queue_k
-                      > settings.packet_interleave
-                      and jnp.ndim(tmax) == 0)
-        return packet_intersect(
-            scene["packed"], orig, raydir, tmin, tmax, anyhit=anyhit,
-            stack_depth=settings.stack_depth,
-            active=None if use_prefix else active,
-            active_prefix=active_prefix if use_prefix else None,
-            tile_sub=settings.packet_tile_sub,
-            interleave=settings.packet_interleave,
-            step_mode=settings.packet_step,
-            queue_k=settings.packet_queue_k,
-            table_mem=settings.packet_table_mem,
-            step_unroll=settings.packet_step_unroll,
-            anyhit_early_stop=settings.anyhit_early_stop)
+    if mode not in ("auto", "plain"):
+        raise ValueError("unknown traversal %r (want auto/plain)" % (mode,))
+    if mode == "auto" and jax.default_backend() == "gpu":
+        from ..ops.traverse_gpu import gpu_intersect
+        return gpu_intersect(scene["packed"], orig, raydir, tmin, tmax,
+                             anyhit=anyhit, active=active,
+                             active_prefix=active_prefix)
     return intersect_scene(
-        scene["prims"], scene["meta"], scene["num_nodes"], orig, raydir,
-        tmin, tmax, anyhit=anyhit, stack_depth=settings.stack_depth,
-        active=active, tile_size=None)
+        None, None, scene["num_nodes"], orig, raydir, tmin, tmax,
+        anyhit=anyhit, stack_depth=settings.stack_depth, active=active,
+        packed=scene["packed"], tile_size=None)
 
 
 def pack_tri_attributes(tri_pos, tri_uv, tri_nrm, tri_mat,
                         prims=None, num_nodes=0):
     """Pack the per-slot attribute streams into one (Kt,28) array so the
-    shading stage pays ONE gather per lane instead of five (gathers inside
-    the bounce loop cost ~0.26 ms / 64k lanes on TPU — they dominate if not
-    fused). Columns: pos[0:9] uv[9:15] nrm[15:24] mat[24] (bitcast)
+    shading stage pays ONE gather per lane instead of five (per-lane
+    gathers inside the bounce loop dominate if not fused). Columns: pos[0:9] uv[9:15] nrm[15:24] mat[24] (bitcast)
     geo_n[25:28].
 
     geo_n precomputes woop_geometric_normal's cross(m1.xyz, m2.xyz) per
     slot from the unified stream's Woop rows (bit-identical inputs and
     f32 ops), removing a second full-width (1M,12) row-gather chain from
-    every wave — the profiler priced that chain at ~6.7 ms/frame at
-    1024^2 (tools/profile_frame.py). prims=None (tests/back-compat)
+    every wave. prims=None (tests/back-compat)
     leaves the geo_n columns zero."""
     import numpy as np
     Kt = tri_pos.shape[0]
@@ -335,13 +232,16 @@ def pack_mat_table(mat_arrays):
 def gather_material(scene, mat_id):
     """Fetch per-lane material params. Material counts are tiny (<= dozens),
     so instead of a gather this is a one-hot matmul against the packed
-    (M,31) table — pure MXU/VPU work, no gather at all (the branch-free
-    analog of the gpuMatDesc fetch at src/renderkernel.cu:570-582)."""
+    (M,31) table — no gather at all (the branch-free analog of the
+    gpuMatDesc fetch at src/renderkernel.cu:570-582). HIGHEST precision:
+    a GPU may otherwise run an f32 product in TF32, which would round
+    every material parameter to ~3 decimal digits."""
     table = scene["mat_table"]                     # (M,31)
     M = table.shape[0]
     oh = (mat_id[:, None] == jnp.arange(M, dtype=jnp.int32)[None, :])
     rows = jnp.dot(oh.astype(jnp.float32), table,
-                   preferred_element_type=jnp.float32)  # (N,31)
+                   preferred_element_type=jnp.float32,
+                   precision=jax.lax.Precision.HIGHEST)  # (N,31)
     m = {}
     for k, (a, b) in _MAT_COLS.items():
         v = rows[:, a:b] if b - a > 1 else rows[:, a]
@@ -366,9 +266,8 @@ def env_miss_weighted(scene, settings: RenderSettings, raydir, bsdf_pdf,
     at the previous diffuse vertex, or a NEGATIVE sentinel when no env
     next-event estimation happened there (weight 1). The sampler pdf comes
     out of the SAME quad-row gather as the radiance (cols 12:16, see
-    texture.sample_envmap_quad_pdf) — this replaces the separate
-    ~8 ms/wave env_pdf_of_dir gather the integrators used to pay on every
-    iteration, with bit-identical results."""
+    texture.sample_envmap_quad_pdf) — this replaces a separate
+    env_pdf_of_dir gather per wave, with bit-identical results."""
     if not settings.use_envmap:
         return jnp.broadcast_to(scene["env_const"], raydir.shape)
     if not settings.env_importance_sampling:
@@ -394,11 +293,10 @@ def pack_envtex_quad(env_quad16, tex_quad12):
     """Concatenate the 16-col env quad table and the (zero-padded) 12-col
     texture quad table into ONE gather target. A pool lane is either a
     MISS (env fetch) or a SURFACE hit (texture fetch) — the two full-width
-    per-wave gathers are mutually exclusive per lane, and a 1M-idx gather
-    costs the same on the merged 196k-row table as on either source table
-    alone (13.3 vs 13.7/13.5 ms per 1M random idx on v5e,
-    tools/probe_gmerge.py) — so merging halves the env+texture gather
-    cost outright. Env rows come first; texture row r sits at
+    per-wave gathers are mutually exclusive per lane, and a per-index
+    gather costs about the same on the merged table as on either source
+    table alone — so merging halves the number of gathered indices. Env
+    rows come first; texture row r sits at
     env_h*env_w + r."""
     import numpy as np
     e = np.asarray(env_quad16, np.float32)
